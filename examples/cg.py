@@ -2,7 +2,7 @@
 
 Demonstrates the framework in a real iterative workload: the SpMV is the
 hot loop, so the whole CG iteration is jitted with the compiled plan as a
-pytree argument — every iteration runs on the TPU with no host round
+pytree argument — every iteration runs on the device with no host round
 trips.
 
     python examples/cg.py            # SPD system from the corpus
@@ -34,13 +34,13 @@ def make_spd(n: int = 4096, seed: int = 0) -> CSRMatrix:
 def cg(op: TileSpMV, b: jax.Array, iters: int = 200):
     """Plain CG, fully on device (plan is a pytree argument)."""
 
-    @functools.partial(jax.jit, static_argnames=("k", "backend"))
-    def run(plan, b, k, backend):
+    @functools.partial(jax.jit, static_argnames=("k",))
+    def run(plan, b, k):
         tiny = jnp.asarray(1e-30, b.dtype)
 
         def body(_, state):
             x, r, p, rs = state
-            ap = spmv(plan, p, backend=backend)
+            ap = spmv(plan, p)
             alpha = rs / jnp.maximum(jnp.vdot(p, ap), tiny)
             x = x + alpha * p
             r = r - alpha * ap
@@ -53,7 +53,7 @@ def cg(op: TileSpMV, b: jax.Array, iters: int = 200):
         x, r, _, _ = jax.lax.fori_loop(0, k, body, state)
         return x, jnp.sqrt(jnp.vdot(r, r))
 
-    return run(op.plan, b, iters, op.backend)
+    return run(op.plan, b, iters)
 
 
 def main():

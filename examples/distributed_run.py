@@ -1,15 +1,15 @@
 """Distributed SpMV walkthrough: row partition with halo exchange, the
 2-D block partition, and a strong-scaling sweep over whatever devices are
-available (virtual CPU mesh here; identical code on a real pod slice —
-call `initialize_multihost()` first for multi-host DCN runs).
+available (a virtual 8-device CPU mesh as written; identical code on real
+cards — call `initialize_multihost()` first for several processes).
 
     python examples/distributed_run.py
 """
 import jax
 
-# must run before any backend initialization; on a real pod slice with
-# enough devices, delete these two lines (and call initialize_multihost()
-# first for multi-host runs)
+# must run before any backend initialization; on real cards, delete
+# these two lines (and call initialize_multihost() first for several
+# processes)
 try:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)

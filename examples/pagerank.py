@@ -1,9 +1,9 @@
-"""PageRank over a power-law graph with the stream engine.
+"""PageRank over a power-law graph.
 
 The adjacency matrix of a power-law graph converts to near-singleton
-16x16 tiles — exactly the case the entry-level stream engine exists for
-(ops/pallas/stream_plan.py). The full power iteration is jitted; each
-step is one SpMV plus elementwise work on the TPU.
+16x16 tiles, which land in the residual engine (a gather plus a sorted
+segment sum, ops/xla_spmv.py). The full power iteration is jitted; each
+step is one SpMV plus elementwise work on the device.
 
     python examples/pagerank.py
 """
@@ -30,20 +30,20 @@ def column_stochastic(csr):
 
 
 def pagerank(op: TileSpMV, damping: float = 0.85, iters: int = 50):
-    @functools.partial(jax.jit, static_argnames=("k", "backend"))
-    def run(plan, k, backend):
+    @functools.partial(jax.jit, static_argnames=("k",))
+    def run(plan, k):
         n = plan.n
         base = jnp.full(n, (1.0 - damping) / n, jnp.float32)
 
         def body(_, r):
-            r2 = damping * spmv(plan, r, backend=backend) + base
+            r2 = damping * spmv(plan, r) + base
             # dangling mass redistributed uniformly
             return r2 + (1.0 - jnp.sum(r2)) / n
 
         return jax.lax.fori_loop(0, k, body, jnp.full(n, 1.0 / n,
                                                       jnp.float32))
 
-    return run(op.plan, iters, op.backend)
+    return run(op.plan, iters)
 
 
 def main():

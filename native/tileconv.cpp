@@ -43,7 +43,7 @@ struct TileRec {
 // filled natively in one pass over the tile-sorted stream — value arrays
 // are raw bytes holding the FINAL dtype (f32 or f64 by `vb`), so Python
 // wraps them zero-copy-equivalent instead of re-scattering 6M-nnz NumPy
-// masks (round-2 verdict, missing item 2).
+// masks.
 struct Fill {
     int32_t vb = 4;
     // CSR: packed stream + per-tile row starts

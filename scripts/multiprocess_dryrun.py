@@ -1,10 +1,9 @@
 """Multi-process (2 proc x 4 CPU devices) dryrun of the multihost path.
 
-Round-4 task 9: exercises initialize_multihost / jax.distributed over
-localhost — the only BASELINE config-5 seam testable without a pod.
-Each process runs the same SPMD program; the 8-device global mesh spans
-both processes, so the all-gather/psum collectives actually cross the
-process boundary (the GLOO/DCN analog of the pod's cross-host path).
+Exercises initialize_multihost / jax.distributed over localhost. Each
+process runs the same SPMD program; the 8-device global mesh spans both
+processes, so the all-gather collectives actually cross the process
+boundary, as they would between hosts.
 
 Run (no args): spawns both workers and validates y on process 0.
 Exit 0 = PASS.

@@ -110,25 +110,10 @@ def test_scaling_sweep_smoke(mesh8):
     assert abs(pts[0].efficiency - 1.0) < 1e-9
 
 
-def test_distributed_banded_uses_band_class(mesh8):
-    """Shard plans keep the band (brick) class under SPMD unification
-    (C and window counts padded across shards)."""
-    from tilespmv_tpu.parallel import DistributedSpMV
-    from tilespmv_tpu.io import generate
-    import numpy as np
-    csr = generate.banded(2048, 2048, 8, seed=1)
-    op = DistributedSpMV(csr, mesh=mesh8, x_mode="halo")
-    assert op.local_plan_struct.band is not None
-    x = np.linspace(-1, 1, csr.n).astype(np.float32)
-    golden = csr.to_dense().astype(np.float32) @ x
-    assert float(np.max(np.abs(np.asarray(op(x)) - golden))) < 1e-2
-
-
 def test_distributed_stream_concentrated_in_one_shard(mesh8):
-    """All COO/stream entries live in the first shard's rows; the other
-    shards build empty stream classes whose STATIC s_batch must match
-    the real shards' pinned rate (a mismatch diverges the stacked
-    plans' treedefs)."""
+    """All COO (residual) entries live in the first shard's rows; the
+    other shards' empty residual engines are padded to the same shape so
+    the stacked plans share one treedef."""
     from tilespmv_tpu.io.mmio import CSRMatrix
     rng = np.random.default_rng(13)
     m = n = 8192                        # 8 shards x 1024 rows
@@ -152,9 +137,8 @@ def test_distributed_stream_concentrated_in_one_shard(mesh8):
 @pytest.mark.parametrize("x_mode", ["allgather", "halo"])
 def test_distributed_df64(mesh8, x_mode):
     """f64 (reference default precision) under the SPMD row partition:
-    the unifier must carry the df64 static flags and part-plane shapes
-    through its empties and pads (dense 48-row vals, band 3C parts,
-    stream (hi, lo) pairs)."""
+    the unifier must carry the f64 value dtype through its empties and
+    pads."""
     if not jax.config.jax_enable_x64:
         pytest.skip("x64 disabled")
     csr = generate.mixed_structure(2048, 2048, seed=5)

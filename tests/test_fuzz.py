@@ -1,5 +1,5 @@
 """Property-based fuzz: random matrices x random configs, CPU engine
-exact vs golden and Pallas path within f32 tolerance (the reference's
+exact vs golden and the device path within f32 tolerance (the reference's
 check discipline, main.cu:101-110 / 186-197, across the config space)."""
 import numpy as np
 import pytest
@@ -60,18 +60,26 @@ def test_fuzz_configs_and_structures(seed):
     # CPU engine: exact against scalar golden on the same fp64 data
     y_cpu = spmv_cpu(tm, x)
     np.testing.assert_allclose(y_cpu, golden, rtol=1e-12, atol=1e-12)
-    # device path (interpret on CPU): f32 tolerance
-    op = TileSpMV(tm, config=cfg, backend="pallas")
+    # device path: f32 tolerance
+    op = TileSpMV(tm, config=cfg)
     y_dev = np.asarray(op(x.astype(np.float32)))
     np.testing.assert_allclose(y_dev, golden, rtol=2e-4, atol=2e-4)
-    # forced stream engine over the same matrix
-    from tilespmv_tpu.ops.pallas.lane_plan import build_lane_plan
-    from tilespmv_tpu.ops.pallas.kernels import spmv_pallas
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_fuzz_configs_and_structures_f64(seed):
+    """The same random cases in native f64, at the f64 scaled gate."""
     import jax.numpy as jnp
-    plan = build_lane_plan(tm, use_stream=True)
-    y_st = np.asarray(spmv_pallas(plan, jnp.asarray(x, jnp.float32),
-                                  interpret=True))
-    np.testing.assert_allclose(y_st, golden, rtol=2e-4, atol=2e-4)
+    from tilespmv_tpu.bench.check import gates, golden
+    rng = np.random.default_rng(1000 + seed)
+    csr = _random_csr(rng)
+    cfg = _random_config(rng)
+    tm = tile_create(csr, cfg)
+    x = rng.standard_normal(csr.n)
+    ref, mag = golden(csr, x)
+    y = np.asarray(TileSpMV(tm, config=cfg, compute_dtype=jnp.float64)(x))
+    g = gates(y, ref[: tm.shape[0]], mag[: tm.shape[0]], np.float64)
+    assert g["ok"], g
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -68,110 +68,3 @@ def test_native_env_disable(monkeypatch):
     csr = generate.banded(256, 256, 2, seed=28)
     tm = tile_create(csr, use_native=False)
     assert tm.tilenum > 0
-
-
-def test_native_stream_plan_matches_numpy():
-    """native/streamplan.cpp and the NumPy reference builder produce
-    equivalent plans (same slab structure, same SpMV result)."""
-    from tilespmv_tpu.core import native
-    if native.get_lib() is None:
-        pytest.skip("no native library")
-    import jax.numpy as jnp
-    from tilespmv_tpu.ops.pallas.stream_plan import (RW_ROWS,
-                                                     build_stream_chunks)
-    from tilespmv_tpu.ops.pallas.kernels import stream_class_call
-    rng = np.random.default_rng(17)
-    m = n = 4096
-    nnz = 25000
-    row = rng.integers(0, m, nnz).astype(np.int64)
-    col = rng.integers(0, n, nnz).astype(np.int64)
-    row[: nnz // 5] = rng.integers(0, 2, nnz // 5)   # hub rows
-    val = rng.standard_normal(nnz)
-    x = rng.standard_normal(n).astype(np.float32)
-    xpad = np.zeros(((n + 127) // 128 + 64) * 128, np.float32)
-    xpad[:n] = x
-    outs = []
-    for nat in (True, False):
-        sc, spill = build_stream_chunks(row, col, val, m, use_native=nat,
-                                        s_batch=8)
-        assert spill[0].size == 0
-        nw2 = max(1, -(-m // RW_ROWS))
-        ys = stream_class_call(sc, jnp.asarray(xpad.reshape(-1, 128)),
-                               nw2, interpret=True)
-        y = (np.asarray(ys).reshape(8, nw2, 128).transpose(1, 0, 2)
-             .reshape(-1)[:m])
-        outs.append((sc.nslabs, y))
-    assert outs[0][0] == outs[1][0]
-    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-4,
-                               atol=1e-5)
-
-
-def test_native_adaptive_s_batch_matches_numpy_with_empty_windows():
-    """Adaptive s_batch must agree even when row windows are empty
-    (regression: the native formula once excluded inert window slabs)."""
-    from tilespmv_tpu.ops.pallas.stream_plan import build_stream_chunks
-    rng = np.random.default_rng(5)
-    m = 10240                       # 10 windows, entries only in window 0
-    nnz = 4000
-    row = rng.integers(0, 1000, nnz).astype(np.int64)
-    col = rng.integers(0, 8192, nnz).astype(np.int64)
-    val = rng.standard_normal(nnz)
-    a, _ = build_stream_chunks(row, col, val, m, use_native=True)
-    b, _ = build_stream_chunks(row, col, val, m, use_native=False)
-    assert a.s_batch == b.s_batch
-    assert a.nslabs == b.nslabs
-    assert a.nsteps == b.nsteps
-
-
-def test_native_stream_plan_df64_matches_numpy():
-    """The native builder's (hi, lo) value-plane export is bit-identical
-    to the NumPy df64 reference split (same slabs, same pair planes)."""
-    from tilespmv_tpu.core import native
-    if native.get_lib() is None:
-        pytest.skip("no native library")
-    from tilespmv_tpu.ops.pallas.stream_plan import build_stream_chunks
-    rng = np.random.default_rng(23)
-    m = n = 4096
-    nnz = 20000
-    row = rng.integers(0, m, nnz).astype(np.int64)
-    col = rng.integers(0, n, nnz).astype(np.int64)
-    row[: nnz // 5] = rng.integers(0, 2, nnz // 5)   # hub rows
-    val = rng.standard_normal(nnz) * (1 + 1e-9 * rng.standard_normal(nnz))
-    a, _ = build_stream_chunks(row, col, val, m, compute_dtype=np.float64,
-                               use_native=True, s_batch=8)
-    b, _ = build_stream_chunks(row, col, val, m, compute_dtype=np.float64,
-                               use_native=False, s_batch=8)
-    assert a.df64 and b.df64 and a.nslabs == b.nslabs
-    np.testing.assert_array_equal(np.asarray(a.val), np.asarray(b.val))
-    np.testing.assert_array_equal(np.asarray(a.val_lo),
-                                  np.asarray(b.val_lo))
-    np.testing.assert_array_equal(np.asarray(a.planes),
-                                  np.asarray(b.planes))
-
-
-def test_native_dual_stream_plan_equivalence():
-    """The C++ dual-span packing must stay in exact lockstep with the
-    NumPy reference builder (byte-identical planes/sbase2)."""
-    import numpy as np
-    from tilespmv_tpu.ops.pallas.stream_plan import build_stream_chunks
-    rng = np.random.default_rng(99)
-    m, nz = 16 * 1024, 60_000
-    r = rng.integers(0, m, nz).astype(np.int64)
-    c = rng.integers(0, m, nz).astype(np.int64)
-    _, ix = np.unique(r * m + c, return_index=True)
-    r, c = r[ix], c[ix]
-    v = rng.standard_normal(r.size)
-    for cdt in (np.float32, np.float64):
-        a, _ = build_stream_chunks(r, c, v, m, compute_dtype=cdt,
-                                   span_rows=64, dual=True,
-                                   use_native=False, device=False)
-        b, _ = build_stream_chunks(r, c, v, m, compute_dtype=cdt,
-                                   span_rows=64, dual=True,
-                                   use_native=True, device=False)
-        for f in ("val", "vidx", "planes", "sbase", "sbase2", "cw",
-                  "cfirst", "sactive", "val_lo"):
-            fa, fb = getattr(a, f), getattr(b, f)
-            if fa is None and fb is None:
-                continue
-            assert np.array_equal(np.asarray(fa), np.asarray(fb)), f
-        assert a.s_batch == b.s_batch and a.rounds_ == b.rounds_

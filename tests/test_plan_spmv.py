@@ -13,7 +13,7 @@ from tilespmv_tpu.ops.spmv import TileSpMV, spmv
 
 def _check(csr, rtol=1e-5, **kwargs):
     tm = tile_create(csr, kwargs.pop("config", TileConfig()))
-    op = TileSpMV(tm, backend="xla", **kwargs)
+    op = TileSpMV(tm, **kwargs)
     rng = np.random.default_rng(0)
     x = rng.standard_normal(csr.n).astype(np.float32)
     y = np.asarray(op(x))
@@ -25,8 +25,8 @@ def _check(csr, rtol=1e-5, **kwargs):
 
 
 # Small instances of every corpus archetype: conversion + XLA compile must
-# stay fast on the single-core CPU test runner; the full-size corpus runs in
-# bench/sweep on TPU.
+# stay fast on the CPU test runner; the full-size corpus runs in
+# bench/sweep on the card.
 ARCHETYPES = {
     "mixed": lambda: generate.mixed_structure(512, 512, seed=1),
     "banded": lambda: generate.banded(1024, 1024, 8, seed=2),
@@ -41,6 +41,19 @@ ARCHETYPES = {
 @pytest.mark.parametrize("name", sorted(ARCHETYPES))
 def test_corpus_spmv_xla(name):
     _check(ARCHETYPES[name]())
+
+
+@pytest.mark.parametrize("name", sorted(ARCHETYPES))
+def test_corpus_spmv_xla_f64(name):
+    """Native f64 (the reference's MAT_VAL_TYPE double) on every
+    archetype, held to the f64 scaled gate (bench/check.py)."""
+    from tilespmv_tpu.bench.check import gates, golden
+    csr = ARCHETYPES[name]()
+    op = TileSpMV(csr, compute_dtype=jnp.float64)
+    x = np.random.default_rng(0).standard_normal(csr.n)
+    ref, mag = golden(csr, x)
+    g = gates(np.asarray(op(x)), ref, mag, np.float64)
+    assert g["ok"], g
 
 
 def test_partial_tile_shapes():
@@ -80,7 +93,7 @@ def test_plan_shapes_are_padded():
 
 def test_spmv_is_jittable_and_stable():
     csr = generate.mixed_structure(512, 512, seed=1)
-    op = TileSpMV(csr, backend="xla")
+    op = TileSpMV(csr)
     x = np.linspace(-1, 1, 512).astype(np.float32)
     y1 = np.asarray(op(x))
     y2 = np.asarray(op(x))
@@ -89,14 +102,14 @@ def test_spmv_is_jittable_and_stable():
 
 def test_wrong_x_shape_raises():
     csr = generate.mixed_structure(64, 64, seed=0)
-    op = TileSpMV(csr, backend="xla")
+    op = TileSpMV(csr)
     with pytest.raises(ValueError, match="expected"):
         op(np.ones(10, np.float32))
 
 
 def test_bytes_and_flops_reporting():
     csr = generate.mixed_structure(512, 512, seed=2)
-    op = TileSpMV(csr, backend="xla")
+    op = TileSpMV(csr)
     assert op.flops() == 2 * csr.nnz
     assert op.bytes_accessed() > 0
 
@@ -104,7 +117,7 @@ def test_bytes_and_flops_reporting():
 def test_f64_on_cpu():
     csr = generate.mixed_structure(128, 128, seed=3)
     with jax.enable_x64(True):
-        op = TileSpMV(csr, compute_dtype=jnp.float64, backend="xla")
+        op = TileSpMV(csr, compute_dtype=jnp.float64)
         x = np.linspace(0, 1, 128)
         y = np.asarray(op(x))
     np.testing.assert_allclose(y, csr.to_dense() @ x, rtol=1e-12)
@@ -112,7 +125,7 @@ def test_f64_on_cpu():
 
 def test_bf16_tolerance():
     csr = generate.banded(256, 256, 4, seed=4)
-    op = TileSpMV(csr, compute_dtype=jnp.bfloat16, backend="xla")
+    op = TileSpMV(csr, compute_dtype=jnp.bfloat16)
     x = np.ones(256, np.float32)
     y = np.asarray(op(x).astype(jnp.float32))
     y_golden = csr.to_dense() @ x
@@ -122,27 +135,28 @@ def test_bf16_tolerance():
 
 
 def test_column_partitioned_wide_matrix():
-    """Matrices wider than the VMEM x budget split into column plans
-    whose partial y's sum (exercised with a tiny forced limit)."""
-    from tilespmv_tpu.ops.spmv import TileSpMV
-    csr = generate.mixed_structure(256, 1024, seed=9)
-    op = TileSpMV(csr, backend="pallas", max_cols_per_plan=256)
-    assert op._col_parts is not None and len(op._col_parts) == 4
-    x = np.linspace(-1, 1, csr.n).astype(np.float32)
+    """A matrix wider than 2^21 columns runs as one plan, not as column
+    parts."""
+    rng = np.random.default_rng(9)
+    m, n = 64, (1 << 21) + 100
+    rows = rng.integers(0, m, 400)
+    cols = np.concatenate([rng.integers(0, n, 396), [0, n - 1, n - 2, 7]])
+    csr = csr_from_coo(m, n, rows, cols, rng.standard_normal(400))
+    op = TileSpMV(csr)
+    assert op.shape == (m, n) and op.plan.n == n
+    x = rng.standard_normal(n)
     y = np.asarray(op(x))
-    ref = csr.to_dense().astype(np.float64) @ x
-    assert np.max(np.abs(y - ref) / (1 + np.abs(ref))) < 1e-4
-    assert op.shape == (256, 1024)
+    ref = csr.matvec(x.astype(np.float32).astype(np.float64))
+    np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)
     assert op.flops() == 2 * csr.nnz
 
 
 @pytest.mark.parametrize("fmt", ["csr", "coo", "ell", "dns"])
 def test_forced_format_pallas(fmt):
     """BASELINE config 2: forced-format mode through the device path."""
-    from tilespmv_tpu.ops.spmv import TileSpMV
     csr = generate.mixed_structure(256, 256, seed=12)
     cfg = TileConfig(force_format=fmt)
-    op = TileSpMV(csr, config=cfg, backend="pallas")
+    op = TileSpMV(csr, config=cfg)
     hist = op.tile_matrix.format_histogram()
     assert set(k for k, v in hist.items() if v) <= {fmt}
     x = np.linspace(-1, 1, csr.n).astype(np.float32)
@@ -153,9 +167,8 @@ def test_forced_format_pallas(fmt):
 
 def test_spmm_multivector():
     """Y = A @ X (SpMM API; beyond-reference capability)."""
-    from tilespmv_tpu.ops.spmv import TileSpMV
     csr = generate.mixed_structure(256, 256, seed=4)
-    op = TileSpMV(csr, backend="pallas")
+    op = TileSpMV(csr)
     rng = np.random.default_rng(0)
     xs = rng.standard_normal((csr.n, 5)).astype(np.float32)
     ys = np.asarray(op.matmat(xs))
@@ -163,63 +176,29 @@ def test_spmm_multivector():
     np.testing.assert_allclose(ys, ref, rtol=2e-4, atol=1e-4)
 
 
-def test_fused_band_spmm_matches_golden():
-    """Band-only plans run the fused multi-RHS kernel (A streamed once);
-    measured 2.3x over the vmapped path on v5e at k=8."""
-    import jax.numpy as jnp
-    from tilespmv_tpu.ops.spmv import TileSpMV
+@pytest.mark.parametrize("k", [1, 17])
+def test_spmm_banded_edge_widths(k):
+    """matmat with one column and with an odd width on a band-only
+    matrix, against the golden."""
     csr = generate.banded(2048, 2048, 12, seed=11)
-    op = TileSpMV(csr, backend="pallas")
-    assert op.plan.band is not None and op.plan.dense is None
+    op = TileSpMV(csr)
     rng = np.random.default_rng(4)
-    xs = rng.standard_normal((csr.n, 8)).astype(np.float32)
+    xs = rng.standard_normal((csr.n, k)).astype(np.float32)
     Y = np.asarray(op.matmat(xs))
     ref = csr.to_dense().astype(np.float64) @ xs
     assert np.max(np.abs(Y - ref) / (1 + np.abs(ref))) < 1e-4
 
 
-def test_window_sparse_coo_absorbed_into_w_class():
-    """Window-sparse COO singletons (stencil corner entries) leave the
-    stream engine: 256 one-slab steps at 12% fill measured ~106 us on
-    v5e vs ~35 us absorbed into W16 (round 4). Window-dense populations
-    (powerlaw) must keep the stream engine."""
-    from tilespmv_tpu.ops.spmv import TileSpMV
-    st = TileSpMV(generate.stencil_2d(128, 128, seed=3),
-                  backend="pallas")
-    kinds = {c["kind"] for c in st.plan.summary()["classes"]}
-    assert "stream" not in kinds and "w16" in kinds
-    x = ((np.arange(st.shape[1]) % 10) / 4.0).astype(np.float32)
-    ref = generate.stencil_2d(128, 128, seed=3).matvec(x.astype(
-        np.float64))
-    np.testing.assert_allclose(np.asarray(st(x)), ref, rtol=1e-4,
-                               atol=1e-5)
-    pw = TileSpMV(generate.power_law(8192, 8192, 16, seed=4),
-                  backend="pallas")
-    assert "stream" in {c["kind"] for c in pw.plan.summary()["classes"]}
-
-
-def test_pick_cb_keeps_small_grids_pipelined():
-    """_pick_cb prices the first step's un-overlapped payload fetch, so
-    a few-chunk dense class keeps >=2 grid steps (Pallas can only
-    prefetch behind a second step). Measured on dense_blocks_medium
-    (4 chunks, t=512): 1 step = 7.8 us vs 4 steps = 6.26 us
-    (scripts/ab_dense_cbatch.py). Many-chunk grids must still batch."""
-    from tilespmv_tpu.ops.pallas import lane_plan as lp
-
-    # dense_blocks_medium shape: 2018 dense tiles in one 256-tile-row
-    # window band, t_lanes=512 -> 4 chunks, k_panels ample
-    rng = np.random.default_rng(0)
-    trow = rng.integers(0, 256, 2018)
-    tcol = rng.integers(0, 256, 2018)
-    cbytes = (16 * 16 * 512 + lp.DENSE_MROWS * 512) * 4
-    cb = lp._pick_cb(trow, tcol, 256, 512, 4, cbytes)
-    nch = int(np.ceil(2018 / 512))
-    assert nch // cb >= 2, f"cb={cb} collapses {nch} chunks to <2 steps"
-    # a large grid (512+ chunks) still batches steps
-    trow_l = rng.integers(0, 4096, 300000)
-    tcol_l = rng.integers(0, 4096, 300000)
-    cb_l = lp._pick_cb(trow_l, tcol_l, 4096, 512, 8, cbytes)
-    assert cb_l >= 2
+def test_fused_band_spmm_matches_golden():
+    """matmat (k = 8) on a band-only matrix against the golden."""
+    k = 8
+    csr = generate.banded(2048, 2048, 12, seed=11)
+    op = TileSpMV(csr)
+    rng = np.random.default_rng(4)
+    xs = rng.standard_normal((csr.n, k)).astype(np.float32)
+    Y = np.asarray(op.matmat(xs))
+    ref = csr.to_dense().astype(np.float64) @ xs
+    assert np.max(np.abs(Y - ref) / (1 + np.abs(ref))) < 1e-4
 
 
 def test_transpose_operator_and_matmul():
@@ -227,9 +206,8 @@ def test_transpose_operator_and_matmul():
     rmatvec and @ follow the scipy LinearOperator conventions. The
     transpose is planned from the source CSR via csr_transpose (the
     reference's CSR->CSC pass, utils.h:172-211)."""
-    from tilespmv_tpu.ops.spmv import TileSpMV
     csr = generate.rectangular(512, 192, 6, seed=9)
-    op = TileSpMV(csr, backend="pallas")
+    op = TileSpMV(csr)
     t = op.T
     assert t.shape == (192, 512) and op.T is t and t.T is op
     y = ((np.arange(512) % 7) / 3.0).astype(np.float32)
@@ -245,6 +223,6 @@ def test_transpose_operator_and_matmul():
     xs = np.stack([x, 2 * x], axis=1)
     assert (op @ xs).shape == (512, 2)
     # TileMatrix-built operators cannot transpose (no source CSR)
-    op2 = TileSpMV(tile_create(csr), backend="pallas")
+    op2 = TileSpMV(tile_create(csr))
     with pytest.raises(ValueError, match="source CSRMatrix"):
         _ = op2.T

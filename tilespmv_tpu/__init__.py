@@ -1,10 +1,10 @@
-"""tilespmv-tpu: a TPU-native tiled sparse linear-algebra framework.
+"""tilespmv-tpu: a tiled sparse linear-algebra framework in JAX.
 
-From-scratch JAX/XLA/Pallas re-design of TileSpMV (IPDPS'21): matrices are
+From-scratch JAX re-design of TileSpMV (IPDPS'21): matrices are
 partitioned into 16x16 tiles, each tile auto-selected among seven storage
 formats, very sparse tiles extracted into a residual matrix, and y = A*x
-computed by format-specialized Pallas kernels on TPU, scaling over device
-meshes via shard_map row partitions.
+computed by format-bucketed engines that XLA compiles for the device,
+scaling over device meshes via shard_map row partitions.
 """
 from .config import (DEFAULT_CONFIG, FMT_COO, FMT_CSR, FMT_DNS, FMT_DNSCOL,
                      FMT_DNSROW, FMT_ELL, FMT_HYB, FORMAT_NAMES, TileConfig)

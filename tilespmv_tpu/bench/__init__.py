@@ -1,6 +1,6 @@
 from .harness import BenchResult, append_results_csv, benchmark_op
-from .roofline import detect_chip, peak_bandwidth_gbps, roofline_gflops
+from .roofline import PEAKS, peak_for
 from .sweep import sweep
 
 __all__ = ["BenchResult", "benchmark_op", "append_results_csv", "sweep",
-           "detect_chip", "peak_bandwidth_gbps", "roofline_gflops"]
+           "PEAKS", "peak_for"]

@@ -1,67 +1,47 @@
-"""Per-chip roofline model.
+"""Per-device roofline table.
 
 The reference reports GFLOPS = 2*nnz/t (tilespmv_cuda.h:1138) and the CSR5
 driver adds a bandwidth figure GB/s = bytes(m,nnz)/t
-(external/CSR5_cuda/detail/utils.h:10-20). SpMV is HBM-bandwidth bound, so
-the meaningful per-chip target is the fraction of peak HBM bandwidth the
-kernel sustains; BASELINE.md sets >= 90% of the HBM roofline as the goal.
+(external/CSR5_cuda/detail/utils.h:10-20). SpMV is bound by device-memory
+bandwidth, so the meaningful per-device figure is the share of peak
+bandwidth the product sustains.
+
+Peaks are keyed by `jax.Device.device_kind`. A device that is not in the
+table is an error, never a default; the CPU has no roofline (None).
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import jax
 
-# Peak HBM bandwidth per chip, GB/s (public spec numbers).
-HBM_GBPS = {
-    "v4": 1228.0,
-    "v5e": 819.0,
-    "v5p": 2765.0,
-    "v6e": 1640.0,
-    "cpu": 50.0,  # rough, for smoke-testing the harness off-TPU
-}
 
-# Peak dense compute per chip, GFLOPS (bf16 MXU spec numbers) — used as
-# a physical sanity BOUND on benchmark results, not as a target: no SpMV
-# measurement can legitimately exceed it (round-2 verdict, weak item 1).
-PEAK_GFLOPS = {
-    "v4": 275e3,
-    "v5e": 197e3,
-    "v5p": 459e3,
-    "v6e": 918e3,
-    "cpu": 2e3,
+class Peak(NamedTuple):
+    hbm_gbps: float        # device-memory bandwidth, GB/s
+    fp32_gflops: float     # float32 outside the tensor cores
+    fp64_gflops: float     # float64 outside the tensor cores
+    source: str
+
+
+_H100_SXM = Peak(hbm_gbps=3350.0, fp32_gflops=67e3, fp64_gflops=34e3,
+                 source="NVIDIA H100 Tensor Core GPU data sheet, SXM5 "
+                        "column (dense, 700 W)")
+
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
 }
 
 
-def detect_chip() -> str:
-    """Best-effort chip generation of the default device."""
-    try:
-        dev = jax.devices()[0]
-    except Exception:
-        return "cpu"
-    kind = getattr(dev, "device_kind", "").lower()
-    if "v5 lite" in kind or "v5e" in kind or "v5lite" in kind:
-        return "v5e"
-    if "v5p" in kind or ("v5" in kind and "lite" not in kind):
-        return "v5p"
-    if "v6" in kind:
-        return "v6e"
-    if "v4" in kind:
-        return "v4"
+def peak_for(device: Optional[jax.Device] = None) -> Optional[Peak]:
+    """The published peaks of `device` (default: the first JAX device);
+    None on the CPU. Raises KeyError for an accelerator not in PEAKS."""
+    dev = device if device is not None else jax.devices()[0]
     if dev.platform == "cpu":
-        return "cpu"
-    return "v5e"
-
-
-def peak_bandwidth_gbps(chip: str | None = None) -> float:
-    return HBM_GBPS[chip or detect_chip()]
-
-
-def peak_compute_gflops(chip: str | None = None) -> float:
-    return PEAK_GFLOPS[chip or detect_chip()]
-
-
-def roofline_gflops(flops: int, bytes_accessed: int,
-                    chip: str | None = None) -> float:
-    """Max achievable GFLOPS for a kernel moving `bytes_accessed` bytes."""
-    bw = peak_bandwidth_gbps(chip) * 1e9
-    seconds_min = bytes_accessed / bw
-    return flops / seconds_min / 1e9
+        return None
+    try:
+        return PEAKS[dev.device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no roofline entry for device kind {dev.device_kind!r} "
+            f"({dev.platform}); add its published peaks to "
+            "bench/roofline.py::PEAKS") from None

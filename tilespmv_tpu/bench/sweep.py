@@ -22,7 +22,6 @@ from .harness import BenchResult, append_results_csv, benchmark_op
 
 def sweep(names: Optional[Iterable[str]] = None,
           config: TileConfig = TileConfig(),
-          backend: str = "auto",
           compute_dtype=np.float32,
           csv_path: Optional[str] = "results.csv",
           json_path: Optional[str] = None,
@@ -35,8 +34,7 @@ def sweep(names: Optional[Iterable[str]] = None,
         csr = generate.get_matrix(name)
         t_load = time.perf_counter() - t0
         t0 = time.perf_counter()
-        op = TileSpMV(csr, config=config, compute_dtype=compute_dtype,
-                      backend=backend)
+        op = TileSpMV(csr, config=config, compute_dtype=compute_dtype)
         t_convert = time.perf_counter() - t0
         res = benchmark_op(op, name=name, **bench_kw)
         results.append(res)
@@ -47,10 +45,12 @@ def sweep(names: Optional[Iterable[str]] = None,
             qual = ("" if res.reliable else
                     f"  [UNRELIABLE spread={res.spread:.0%} — row NOT "
                     "recorded]")
+            roof = ("n/a" if res.roofline_frac is None
+                    else f"{res.roofline_frac:.1%}")
             print(f"{name}: m={res.m} nnz={res.nnz} "
                   f"ms={res.ms:.4f} GFLOPS={res.gflops:.2f} "
                   f"GB/s={res.gbytes_per_s:.1f} "
-                  f"roofline={res.roofline_frac:.1%} "
+                  f"roofline={roof} device={res.device} "
                   f"(gen {t_load:.2f}s, convert+plan {t_convert:.2f}s) "
                   f"formats={ {k: v for k, v in hist.items() if v} }"
                   f"{qual}")

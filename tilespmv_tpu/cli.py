@@ -1,6 +1,6 @@
 """Benchmark / validation CLI driver.
 
-TPU-native equivalent of the reference's benchmark binary
+Equivalent of the reference's benchmark binary
 (reference: src/main.cu:15-205, usage `./test -d <device> matrix.mtx`):
 loads a matrix, converts it, validates the CPU tiled path exactly against
 the scalar CSR golden model (tilespmv_cpu.h:274-284), runs the device path,
@@ -24,7 +24,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tilespmv_tpu",
-        description="TPU tiled SpMV benchmark/validation driver")
+        description="tiled SpMV benchmark/validation driver")
     p.add_argument("matrix", nargs="?",
                    help=".mtx path or synthetic corpus name")
     p.add_argument("--sweep-dir", default=None, metavar="DIR",
@@ -46,14 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sweep", action="store_true",
                    help="benchmark the whole synthetic corpus")
     p.add_argument("--scaling", action="store_true",
-                   help="strong-scaling sweep over the device mesh "
-                        "(BASELINE configs 4-5)")
+                   help="strong-scaling sweep over the device mesh")
     p.add_argument("-d", "--device", default=None,
-                   choices=["cpu", "tpu"],
+                   choices=["cpu", "gpu"],
                    help="platform select (reference main.cu -d; set "
                         "before any JAX op)")
-    p.add_argument("--backend", default="auto",
-                   choices=["auto", "xla", "pallas"])
     p.add_argument("--dtype", default="f32",
                    choices=["f32", "f64", "bf16"])
     p.add_argument("--tile-size", type=int, default=16)
@@ -73,21 +70,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip correctness validation")
     p.add_argument("--device-check", action="store_true",
                    help="full-vector device check over the whole "
-                        "synthetic corpus (gates the compiled split-bf16 "
-                        "/ gather paths the CPU suite cannot execute)")
-    p.add_argument("--profile", action="store_true",
-                   help="per-format-class cost breakdown "
-                        "(reference DEBUG_FORMATCOST parity)")
+                        "synthetic corpus")
     p.add_argument("--save-tiles", default=None, metavar="PATH.npz",
                    help="checkpoint the converted TileMatrix")
     p.add_argument("--load-tiles", default=None, metavar="PATH.npz",
                    help="load a converted TileMatrix instead of converting")
     p.add_argument("--save-plan", default=None, metavar="PATH.npz",
-                   help="checkpoint the compiled LanePlan (plan build is "
+                   help="checkpoint the compiled SpMVPlan (plan build is "
                         "the dominant host cost on large matrices)")
     p.add_argument("--load-plan", default=None, metavar="PATH.npz",
-                   help="load a LanePlan instead of converting+planning "
-                        "(skips the CPU check; pallas backend only)")
+                   help="load an SpMVPlan instead of converting+planning "
+                        "(skips the CPU check)")
     p.add_argument("--resume", action="store_true",
                    help="with --sweep-dir/--sweep-manifest: skip "
                         "matrices that already have a row in --csv "
@@ -117,8 +110,9 @@ def main(argv=None) -> int:
     import jax
     if args.device:
         # must run before backend initialization (reference -d,
-        # main.cu:35-58; env vars are unreliable under this harness)
-        jax.config.update("jax_platforms", args.device)
+        # main.cu:35-58)
+        jax.config.update("jax_platforms",
+                          {"cpu": "cpu", "gpu": "cuda"}[args.device])
     import jax.numpy as jnp
 
     from .bench.harness import append_results_csv, benchmark_op
@@ -127,7 +121,9 @@ def main(argv=None) -> int:
     from .core.convert import tile_create
     from .ops.cpu_reference import spmv_cpu
     from .ops.spmv import TileSpMV
+    from .utils.jax_cache import configure_compile_cache
 
+    configure_compile_cache()
     dtype = {"f32": jnp.float32, "f64": jnp.float64,
              "bf16": jnp.bfloat16}[args.dtype]
     if args.dtype == "f64":
@@ -138,7 +134,7 @@ def main(argv=None) -> int:
                         truncate_rows_to_tile=args.truncate_rows)
 
     if args.sweep:
-        sweep(config=config, backend=args.backend, compute_dtype=dtype,
+        sweep(config=config, compute_dtype=dtype,
               csv_path=args.csv or None)
         return 0
 
@@ -206,17 +202,15 @@ def main(argv=None) -> int:
                         args.plan_cache,
                         f"{os.path.basename(path)}.{args.dtype}.plan.npz")
                 if cpath and os.path.exists(cpath):
-                    from .core.serialize import load_lane_plan
-                    op = TileSpMV.from_plan(load_lane_plan(cpath),
+                    from .core.serialize import load_plan
+                    op = TileSpMV.from_plan(load_plan(cpath),
                                             compute_dtype=dtype)
                 else:
                     csr = _load(path)
-                    op = TileSpMV(csr, config=config, compute_dtype=dtype,
-                                  backend=args.backend)
-                    if cpath and op.backend == "pallas" \
-                            and op.plan is not None:
-                        from .core.serialize import save_lane_plan
-                        save_lane_plan(cpath, op.plan)
+                    op = TileSpMV(csr, config=config, compute_dtype=dtype)
+                    if cpath:
+                        from .core.serialize import save_plan
+                        save_plan(cpath, op.plan)
                 res = benchmark_op(
                     op, name=os.path.basename(path),
                     iters_per_rep=args.iters, timed_reps=args.reps,
@@ -250,8 +244,7 @@ def main(argv=None) -> int:
         bad_total = 0
         for name in sorted(generate.CORPUS):
             csr = generate.get_matrix(name)
-            op = TileSpMV(csr, config=config, compute_dtype=dtype,
-                          backend=args.backend)
+            op = TileSpMV(csr, config=config, compute_dtype=dtype)
             x = ((_np.arange(csr.n) % 10) / 4.0)
             y = _np.asarray(op(x.astype(_np.dtype(dtype).name if dtype
                                         != jnp.bfloat16 else _np.float32)))
@@ -263,8 +256,7 @@ def main(argv=None) -> int:
             bad = int(_np.sum(_np.abs(ref - y) > tol * _np.abs(ref)
                               + 1e-4))
             bad_total += bad
-            print(f"{name}: {'PASS' if bad == 0 else f'NO PASS ({bad})'}"
-                  f"  [{op.backend}]")
+            print(f"{name}: {'PASS' if bad == 0 else f'NO PASS ({bad})'}")
         print("device-check:", "PASS" if bad_total == 0 else "NO PASS")
         return 0 if bad_total == 0 else 1
 
@@ -283,9 +275,9 @@ def main(argv=None) -> int:
         # plan checkpoint path: no conversion, no CPU check (the plan
         # carries no TileMatrix); validate on-device vs the reloaded
         # matrix only when one is given
-        from .core.serialize import load_lane_plan
+        from .core.serialize import load_plan
         t0 = time.perf_counter()
-        op = TileSpMV.from_plan(load_lane_plan(args.load_plan),
+        op = TileSpMV.from_plan(load_plan(args.load_plan),
                                 compute_dtype=dtype)
         print(f"plan loaded in {time.perf_counter() - t0:.3f}s: "
               f"m={op.plan.m} n={op.plan.n} nnz={op.plan.nnz}")
@@ -341,24 +333,16 @@ def main(argv=None) -> int:
         errs = int(np.sum(y_cpu != y_golden))
         print(f"CPU TileSpMV errcount = {errs}")
 
-    # pass the CSR for over-wide matrices so TileSpMV can column-
-    # partition (the TileMatrix was still needed for the CPU check above)
-    dev_input = csr if csr.n > TileSpMV.MAX_COLS_PER_PLAN else tm
-    op = TileSpMV(dev_input, config=config, compute_dtype=dtype,
-                  backend=args.backend)
+    op = TileSpMV(tm, config=config, compute_dtype=dtype)
     if args.save_plan:
-        if op.backend != "pallas" or op.plan is None:
-            print("--save-plan requires the (non-partitioned) pallas "
-                  "backend", file=sys.stderr)
-            return 2
-        from .core.serialize import save_lane_plan
-        save_lane_plan(args.save_plan, op.plan)
+        from .core.serialize import save_plan
+        save_plan(args.save_plan, op.plan)
         print(f"plan saved to {args.save_plan}")
     t0 = time.perf_counter()
     y_dev = np.asarray(op(x.astype(np.float64)), dtype=np.float64)
     print(f"device path compiled+ran in {time.perf_counter() - t0:.2f}s "
-          f"(backend={op.backend}, dtype={args.dtype}, "
-          f"device={jax.devices()[0].device_kind})")
+          f"(dtype={args.dtype}, device={jax.devices()[0].device_kind}, "
+          f"count={len(jax.devices())})")
 
     if not args.no_check:
         # 1% relative tolerance gate (main.cu:186-197)
@@ -370,24 +354,15 @@ def main(argv=None) -> int:
         if errors:
             return 1
 
-    if args.profile and op.backend == "pallas":
-        import json as _json
-        print("plan summary: " + _json.dumps(op.plan.summary()))
-        from .utils.profiling import profile_engines
-        print("per-format-class cost profile:")
-        for cls_name, stats in profile_engines(op, x=x).items():
-            print(f"  {cls_name}: " + "  ".join(
-                f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in stats.items()))
-
     res = benchmark_op(op, x=x, name=args.matrix, warmup=args.warmup,
                        timed_reps=args.reps, iters_per_rep=args.iters)
     qual = ("" if res.reliable
             else f"  [UNRELIABLE: spread={res.spread:.0%}]")
+    roof = ("no roofline on the CPU" if res.roofline_frac is None
+            else f"{res.roofline_frac:.1%} of peak HBM bandwidth")
     print(f"TileSpMV: {res.ms:.4f} ms, {res.gflops:.2f} GFLOPS, "
           f"{res.gnnz_per_s * 1e3:.2f} Mnnz/ms, "
-          f"{res.gbytes_per_s:.1f} GB/s "
-          f"({res.roofline_frac:.1%} of {res.chip} HBM roofline){qual}")
+          f"{res.gbytes_per_s:.1f} GB/s ({roof}) on {res.device}{qual}")
     if args.csv:
         if res.reliable:
             append_results_csv(args.csv, res)

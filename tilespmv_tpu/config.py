@@ -1,6 +1,6 @@
-"""Global configuration for the TPU tiled-SpMV framework.
+"""Global configuration for the tiled-SpMV framework.
 
-TPU-native analog of the reference's compile-time tunables
+Analog of the reference's compile-time tunables
 (reference: src/common.h:12-63). Unlike the reference, every tunable is a
 runtime config value, so one process can convert/execute matrices under
 different tile shapes, thresholds, and dtypes.
@@ -61,7 +61,7 @@ class TileConfig:
 
     # Load-balance chunking: tile-rows longer than this many tiles are split
     # into chunks (reference: common.h:46 PREFETCH_SMEM_TH=4,
-    # tilespmv_cpu.h:68-118). On TPU this feeds the plan-stage work grouping.
+    # tilespmv_cpu.h:68-118).
     chunk_tiles: int = 4
 
     # Value dtype used for conversion / CPU reference path.
@@ -77,7 +77,7 @@ class TileConfig:
     truncate_rows_to_tile: bool = False
 
     # Force every tile into one format, bypassing the selector (the
-    # "forced format (no selector)" benchmark config, BASELINE.md). Only
+    # "forced format (no selector)" benchmark config, BASELINE.json). Only
     # formats any tile can legally take: "csr", "coo", "ell", "dns".
     force_format: Optional[str] = None
 

@@ -1,6 +1,6 @@
 """4-bit intra-tile index codec.
 
-TPU-native, vectorized equivalent of the reference's nibble packer
+Vectorized equivalent of the reference's nibble packer
 (reference: src/encode.h:29-63 and the COO (row<<4)|col packing at
 src/csr2tile.h:975-980). Two 4-bit intra-tile column indices are packed per
 byte for CSR/ELL payloads; COO entries pack (row, col) of one nonzero into a

@@ -218,211 +218,6 @@ def analyze(m: int, n: int, indptr: np.ndarray, indices: np.ndarray,
         lib.tc_release(h)
 
 
-def _init_stream_symbols(lib) -> bool:
-    try:
-        lib.sp_build.restype = ctypes.c_void_p
-        lib.sp_build.argtypes = [
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        ]
-        lib.sp_scalars.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.sp_export.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 6
-        lib.sp_export_vlo.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.sp_export_sb2.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.sp_export_cw.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.sp_export_loads.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.sp_export_class.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int32] + [ctypes.c_void_p] * 6
-        lib.sp_export_segmask.argtypes = [ctypes.c_void_p,
-                                          ctypes.c_void_p]
-        lib.sp_seg_levels.argtypes = [ctypes.c_void_p]
-        lib.sp_seg_levels.restype = ctypes.c_int32
-        lib.sp_release.argtypes = [ctypes.c_void_p]
-        return True
-    except AttributeError:
-        return False
-
-
-def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
-                m: int, s_batch: Optional[int],
-                want_lo: bool = False,
-                span_rows: int = 64,
-                dual: bool = False) -> Optional[dict]:
-    """Run the native stream-plan builder (native/streamplan.cpp);
-    returns the raw plan arrays or None when unavailable. `want_lo`
-    makes the builder compute and export the double-f32 LO value plane
-    (skipped entirely for f32 builds — it would cost an extra
-    nslabs*8*128 float buffer and a per-entry f64 subtraction).
-    `dual` builds the dual-span slab packing (sbase2 exported; exact
-    lockstep with stream_plan._build_dual)."""
-    lib = get_lib()
-    if lib is None or not _init_stream_symbols(lib):
-        return None
-    g_row = np.ascontiguousarray(g_row, dtype=np.int64)
-    g_col = np.ascontiguousarray(g_col, dtype=np.int64)
-    val64 = np.ascontiguousarray(val, dtype=np.float64)
-    nz = g_row.shape[0]
-    h = lib.sp_build(nz, g_row.ctypes.data, g_col.ctypes.data,
-                     val64.ctypes.data, m, int(s_batch or 0),
-                     int(span_rows), int(bool(want_lo)),
-                     int(bool(dual)))
-    if not h:
-        return None
-    try:
-        sc = np.zeros(6, np.int64)
-        lib.sp_scalars(h, sc.ctypes.data)
-        nslabs, nsteps, s_b, nwin, plane_rows, rounds = (
-            int(v) for v in sc)
-        out = dict(
-            nslabs=nslabs, nsteps=nsteps, s_batch=s_b, rounds=rounds,
-            val=np.zeros((nslabs, 8, 128), np.float32),
-            vidx=np.zeros((nslabs, 8, 128), np.int16),
-            planes=np.zeros((nslabs, plane_rows, 128), np.int8),
-            sbase=np.zeros(nslabs, np.int32),
-            cw=np.zeros(nsteps, np.int32),
-            cfirst=np.zeros(nsteps, np.int32),
-        )
-        lib.sp_export(
-            h, out["val"].ctypes.data, out["vidx"].ctypes.data,
-            out["planes"].ctypes.data, out["sbase"].ctypes.data,
-            out["cw"].ctypes.data, out["cfirst"].ctypes.data)
-        if want_lo:
-            out["val_lo"] = np.zeros((nslabs, 8, 128), np.float32)
-            lib.sp_export_vlo(h, out["val_lo"].ctypes.data)
-            out["segmask"] = np.zeros((nslabs, 8, 128), np.int8)
-            lib.sp_export_segmask(h, out["segmask"].ctypes.data)
-            out["scan_levels"] = int(lib.sp_seg_levels(h))
-        if dual:
-            out["sbase2"] = np.zeros(nslabs, np.int32)
-            lib.sp_export_sb2(h, out["sbase2"].ctypes.data)
-        return out
-    finally:
-        lib.sp_release(h)
-
-
-def stream_plan_classes(g_row: np.ndarray, g_col: np.ndarray,
-                        val: np.ndarray, m: int,
-                        want_lo: bool = False,
-                        span_rows: int = 64,
-                        dual: bool = False,
-                        split_fn=None) -> Optional[list]:
-    """Native build + fused per-class export of the stream plan.
-
-    Builds once at slabs-per-step 1 (minimal builder padding), decides
-    the two-rate split with `split_fn(wcnt) -> (s1, s2, heavy_mask)`
-    (stream_plan.pick_stream_split, passed in to avoid a circular
-    import), then exports each class DIRECTLY in the final kernel
-    layout (load-sorted, window-padded, per-step stacked planes) in one
-    C++ pass — replacing the NumPy reorder + unstack/stack round trips
-    that dominated stream planning time (round-4 task 3).
-
-    Returns a list of per-class dicts (arrays + s_batch/rounds), the
-    base class first, or None when the native library is unavailable.
-    """
-    lib = get_lib()
-    if lib is None or not _init_stream_symbols(lib):
-        return None
-    g_row = np.ascontiguousarray(g_row, dtype=np.int64)
-    g_col = np.ascontiguousarray(g_col, dtype=np.int64)
-    val64 = np.ascontiguousarray(val, dtype=np.float64)
-    nz = g_row.shape[0]
-    h = lib.sp_build(nz, g_row.ctypes.data, g_col.ctypes.data,
-                     val64.ctypes.data, m, 1, int(span_rows),
-                     int(bool(want_lo)), int(bool(dual)))
-    if not h:
-        return None
-    try:
-        sc = np.zeros(6, np.int64)
-        lib.sp_scalars(h, sc.ctypes.data)
-        nslabs, _, _, nwin, _, rounds = (int(v) for v in sc)
-        loads = np.zeros(nslabs, np.int64)
-        cw_all = np.zeros(nslabs, np.int32)      # s_batch 1: per slab
-        lib.sp_export_loads(h, loads.ctypes.data)
-        lib.sp_export_cw(h, cw_all.ctypes.data)
-        real = loads > 0
-        segm = None
-        if want_lo:
-            segm = np.zeros((nslabs, 8, 128), np.int8)
-            lib.sp_export_segmask(h, segm.ctypes.data)
-        wcnt = np.bincount(cw_all[real].astype(np.int64),
-                           minlength=nwin)
-        s1, s2, heavy = split_fn(wcnt)
-        if s2 is None:
-            heavy = np.zeros(nwin, bool)
-
-        def make_class(wmask, s):
-            ids = np.nonzero(real & wmask[cw_all])[0]
-            order = np.lexsort((-loads[ids], cw_all[ids]))
-            ids = ids[order]
-            sel_w = np.nonzero(wmask)[0]
-            cnt = wcnt[sel_w]
-            padded = np.maximum(1, -(-cnt // s)) * s
-            starts = np.concatenate([[0], np.cumsum(padded)])[:-1]
-            tot = int(padded.sum())
-            src = np.full(tot, -1, np.int64)
-            w_of = cw_all[ids].astype(np.int64)
-            dst = starts[np.searchsorted(sel_w, w_of)] + _rank1(w_of)
-            src[dst] = ids
-            out = dict(
-                s_batch=int(s), rounds=rounds,
-                val=np.empty((tot, 8, 128), np.float32),
-                vidx=np.empty((tot, 8, 128), np.int16),
-                planes=np.empty((tot // s, rounds * 3 * 8 * s, 128),
-                                np.int8),
-                sbase=np.empty(tot, np.int32),
-            )
-            vlo_p = None
-            if want_lo:
-                out["val_lo"] = np.empty((tot, 8, 128), np.float32)
-                vlo_p = out["val_lo"].ctypes.data
-            sb2_p = None
-            if dual:
-                out["sbase2"] = np.empty(tot, np.int32)
-                sb2_p = out["sbase2"].ctypes.data
-            lib.sp_export_class(
-                h, src.ctypes.data, tot, int(s), rounds,
-                out["val"].ctypes.data, vlo_p,
-                out["vidx"].ctypes.data, out["planes"].ctypes.data,
-                out["sbase"].ctypes.data, sb2_p)
-            win_full = np.repeat(sel_w, padded)
-            cwc = win_full[::s].astype(np.int32)
-            cf = np.ones(cwc.shape[0], np.int32)
-            cf[1:] = (cwc[1:] != cwc[:-1]).astype(np.int32)
-            ld = np.zeros(tot, np.int64)
-            ld[dst] = loads[ids]
-            out["cw"] = cwc
-            out["cfirst"] = cf
-            out["sactive"] = (ld.reshape(-1, s).sum(axis=1)
-                              > 0).astype(np.int32)
-            if segm is not None:
-                sm = np.zeros((tot, 8, 128), np.int8)
-                sm[dst] = segm[ids]
-                out["segmask"] = sm
-                # per-class depth from the class's own mask bits
-                out["scan_levels"] = int(sm.max()).bit_length()
-            return out
-
-        classes = [make_class(~heavy, s1)]
-        if s2 is not None:
-            classes.append(make_class(heavy, s2))
-        return classes
-    finally:
-        lib.sp_release(h)
-
-
-def _rank1(key: np.ndarray) -> np.ndarray:
-    """0-based rank within equal-key groups of a SORTED key array."""
-    n = key.shape[0]
-    if n == 0:
-        return np.zeros(0, np.int64)
-    new = np.ones(n, bool)
-    new[1:] = key[1:] != key[:-1]
-    startpos = np.maximum.accumulate(np.where(new, np.arange(n), 0))
-    return np.arange(n) - startpos
-
-
 def parse_coord_body(body: bytes, nnz: int, field: str):
     """Parse a Matrix Market coordinate body natively
     (native/mmio_parse.cpp); returns (rows, cols, vals) or None to fall

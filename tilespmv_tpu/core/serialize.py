@@ -1,15 +1,13 @@
-"""TileMatrix + LanePlan serialization (checkpoint/resume).
+"""TileMatrix + SpMVPlan serialization (checkpoint/resume).
 
 The reference re-converts every matrix on every run (SURVEY.md §5:
 no checkpointing exists). Corpus sweeps re-pay conversion constantly, so
 converted TileMatrix containers can be saved to a single .npz and reloaded
 without touching the converter.
 
-Round-5 addition: compiled LanePlans are serializable too. Plan build is
-the dominant host cost now (powerlaw_large ~6 s f32 / ~48 s df64 — the
-stream builder's occupied-cells sort + class export), so sweeps and
-repeated sessions reload plans instead of re-planning. A LanePlan is a
-pytree of arrays + static geometry fields; the writer walks the
+Compiled SpMVPlans are serializable too, so sweeps and repeated sessions
+can reload plans instead of converting and planning again. An SpMVPlan
+is a pytree of arrays + static geometry fields; the writer walks the
 registered dataclasses generically, so new array/static fields
 round-trip without touching this module.
 """
@@ -74,21 +72,19 @@ def load_tile_matrix(path: str) -> TileMatrix:
 
 
 # ---------------------------------------------------------------------------
-# LanePlan serialization (round-4 verdict #4): plans are pytrees of
+# SpMVPlan serialization: plans are pytrees of
 # jnp arrays + static fields on @jax.tree_util.register_dataclass
 # dataclasses. Walk them generically: array fields -> npz entries under
 # hierarchical keys, static fields + structure -> a JSON meta tree.
 
-_PLAN_VERSION = 1
+_PLAN_VERSION = 2
 
 
 def _plan_classes():
-    from ..ops.pallas.lane_plan import (BandChunks, DenseChunks, LanePlan,
-                                        SparseChunks)
-    from ..ops.pallas.stream_plan import StreamChunks
-    from ..ops.plan import ResidualEngine
-    return {c.__name__: c for c in (LanePlan, DenseChunks, BandChunks,
-                                    SparseChunks, StreamChunks,
+    from ..ops.plan import (ColEngine, CsrEngine, DenseEngine, EllEngine,
+                            ResidualEngine, RowEngine, SpMVPlan)
+    return {c.__name__: c for c in (SpMVPlan, DenseEngine, RowEngine,
+                                    ColEngine, EllEngine, CsrEngine,
                                     ResidualEngine)}
 
 
@@ -141,8 +137,8 @@ def _unflatten_node(meta, key: str, z, classes: dict, asarray):
     return cls(**kwargs)
 
 
-def save_lane_plan(path: str, plan) -> None:
-    """Serialize a LanePlan (any dtype/geometry) to one .npz."""
+def save_plan(path: str, plan) -> None:
+    """Serialize an SpMVPlan (any dtype/geometry) to one .npz."""
     classes = _plan_classes()
     arrays: dict = {}
     tree = _flatten_node(plan, "plan", arrays, classes)
@@ -152,15 +148,15 @@ def save_lane_plan(path: str, plan) -> None:
     np.savez(path, **arrays)
 
 
-def load_lane_plan(path: str, device: bool = True):
-    """Load a LanePlan saved by save_lane_plan. `device=True` puts the
+def load_plan(path: str, device: bool = True):
+    """Load an SpMVPlan saved by save_plan. `device=True` puts the
     arrays on the default JAX device (jnp.asarray); False keeps NumPy
     views (e.g. for byte-identity tests without a transfer)."""
     z = np.load(path)
     meta = json.loads(bytes(z["__meta__"]).decode())
     if meta.get("version") != _PLAN_VERSION:
         raise ValueError(
-            f"unknown LanePlan file version {meta.get('version')}")
+            f"unknown plan file version {meta.get('version')}")
     if device:
         import jax.numpy as jnp
         asarray = jnp.asarray

@@ -1,6 +1,6 @@
 """TileMatrix — the central tiled-sparse container.
 
-TPU-native analog of the reference `struct Tile_matrix` (reference:
+Analog of the reference `struct Tile_matrix` (reference:
 src/format.h:3-56). The matrix is partitioned into a dense grid of
 `tile_size x tile_size` tiles; occupied tiles are stored in a tile-grid CSR
 (tile_ptr / tile_columnidx / tile_nnz) and each tile's payload lives in one
@@ -11,7 +11,7 @@ matrix (csr2tile.h:899-960), computed at SpMV time by the residual engine.
 
 Everything is a plain NumPy array so the container is a pytree-compatible
 bag of flat buffers — the direct input to both the CPU reference path and
-the TPU execution planner.
+the execution planner (ops/plan.py).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ class CSRBucket:
     col: np.ndarray           # uint8 [nnz] intra-tile column
     # Per-nnz intra-tile row (redundant with rowptr; the reference derives it
     # by walking rowptr, tilespmv_cpu.h:144-148 — kept explicit here because
-    # the TPU plan consumes (row, col) pairs directly).
+    # the execution plan consumes (row, col) pairs directly).
     row: np.ndarray           # uint8 [nnz]
 
     @property

@@ -125,7 +125,7 @@ def stencil_2d(nx: int, ny: int, seed: int = 0,
 def stencil_3d(nx: int, ny: int, nz: int, seed: int = 0,
                dtype=np.float64) -> CSRMatrix:
     """7-point 3D Poisson stencil — two distinct far diagonals (pitch
-    nx and nx*ny) stress the brick class's column-span limit."""
+    nx and nx*ny) put single-diagonal tiles far from the main band."""
     rng = np.random.default_rng(seed)
     m = nx * ny * nz
     i = np.arange(m)
@@ -148,8 +148,7 @@ def stencil_3d(nx: int, ny: int, nz: int, seed: int = 0,
 def rectangular(m: int, n: int, avg_nnz_per_row: int = 8, seed: int = 0,
                 dtype=np.float64) -> CSRMatrix:
     """Rectangular (tall m >> n or wide n >> m) uniform matrix — the
-    LP/least-squares archetype; exercises the non-square window/panel
-    bookkeeping."""
+    LP/least-squares archetype; exercises non-square tile grids."""
     rng = np.random.default_rng(seed)
     nnz = m * avg_nnz_per_row
     rows = rng.integers(0, m, nnz)
@@ -160,8 +159,7 @@ def rectangular(m: int, n: int, avg_nnz_per_row: int = 8, seed: int = 0,
 def empty_stripes(m: int, n: int, period: int = 3, seed: int = 0,
                   dtype=np.float64) -> CSRMatrix:
     """Only every `period`-th row/column is populated — empty-row and
-    empty-column stressor (empty tile-rows, windows with no tiles,
-    x panels never touched)."""
+    empty-column stressor (empty tile-rows, x blocks never touched)."""
     rng = np.random.default_rng(seed)
     live_r = np.arange(0, m, period)
     nnz = live_r.size * 6
@@ -209,9 +207,8 @@ def block_random(m: int, n: int, block: int = 16, density: float = 0.02,
 def permuted_banded(m: int, n: int, bandwidth: int, seed: int = 0,
                     dtype=np.float64) -> CSRMatrix:
     """A banded matrix under a random symmetric row/col permutation —
-    locality destroyed, same degree profile (tests that the selector
-    does NOT pick band/brick paths and the scattered tiles stay
-    correct)."""
+    locality destroyed, same degree profile (the scattered tiles must
+    stay correct)."""
     rng = np.random.default_rng(seed)
     b = banded(m, n, bandwidth, seed=seed, dtype=dtype)
     perm = rng.permutation(m)
@@ -223,8 +220,8 @@ def permuted_banded(m: int, n: int, bandwidth: int, seed: int = 0,
 def diag_plus_hubs(m: int, n: int, bandwidth: int = 2, hubs: int = 4,
                    seed: int = 0, dtype=np.float64) -> CSRMatrix:
     """Near-diagonal band + a few full hub rows/columns — the
-    circuit-simulation archetype (band class + full-row tiles + the
-    hub columns every stream window touches)."""
+    circuit-simulation archetype (band tiles + full-row tiles + hub
+    columns every row block touches)."""
     rng = np.random.default_rng(seed)
     b = banded(m, n, bandwidth, seed=seed, dtype=dtype)
     hub_r = rng.choice(m, hubs, replace=False)
@@ -241,8 +238,8 @@ def diag_plus_hubs(m: int, n: int, bandwidth: int = 2, hubs: int = 4,
 
 def hypersparse(m: int, n: int, density: float = 1e-5, seed: int = 0,
                 dtype=np.float64) -> CSRMatrix:
-    """~1e-5 density uniform — most rows empty; the stream engine's
-    dual-span/wide-span escape hatches are the only efficient route."""
+    """~1e-5 density uniform — most rows empty, nearly every entry in
+    its own tile (all residual)."""
     return random_uniform(m, n, density, seed=seed, dtype=dtype)
 
 
@@ -279,12 +276,9 @@ CORPUS = {
     "mixed_large": lambda: mixed_structure(65536, 65536, seed=7),
     "banded_large": lambda: banded(262144, 262144, 16, seed=8),
     "powerlaw_large": lambda: power_law(262144, 262144, 24, seed=9),
-    # SuiteSparse-scale web-graph archetype (~5.5M nnz at 2e-5 density):
-    # exercises the stream engine's adaptive superspan (64 -> 256 rows,
-    # 16% -> 63% slab fill; BASELINE.md round 3)
+    # SuiteSparse-scale web-graph archetype (~5.5M nnz at 2e-5 density)
     "powerlaw_huge": lambda: power_law(524288, 524288, 11, seed=77),
-    # --- round-4 breadth (VERDICT task 4): the SuiteSparse structural
-    # archetypes the synthetic corpus was missing ---
+    # --- SuiteSparse structural archetypes ---
     "stencil2d_medium": lambda: stencil_2d(128, 128, seed=20),
     "stencil2d_large": lambda: stencil_2d(512, 512, seed=21),
     "stencil3d_large": lambda: stencil_3d(64, 64, 64, seed=22),

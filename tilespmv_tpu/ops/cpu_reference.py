@@ -3,12 +3,12 @@
 Vectorized NumPy equivalent of the reference's sequential CPU engine
 (reference: src/tilespmv_cpu.h:3-285): executes all seven per-tile format
 algorithms directly on the TileMatrix payload buckets and produces y = A*x.
-This is the correctness oracle for the TPU path and the target of the
+This is the correctness oracle for the device path and the target of the
 exact-match check against the scalar CSR golden model
 (tilespmv_cpu.h:274-284).
 
 Unlike the GPU reference, COO tiles are computed from the per-tile COO
-bucket here (the TPU execute path uses the extracted residual instead,
+bucket here (the device path uses the extracted residual instead,
 mirroring how the reference GPU kernels defer COO to replay buffers,
 tilespmv_cuda.h:461-500).
 """

@@ -1,16 +1,16 @@
-"""TPU execution plan.
+"""Execution plan.
 
 The reference fuses all seven per-tile formats into one mega-kernel that
-branches per tile on the format code (reference: tilespmv_cuda.h:394-792).
-That design is idiomatic for a warp machine and hostile to TPU: data-
-dependent branching defeats XLA/Mosaic vectorization. The TPU-native design
-separates *storage* (TileMatrix, reference-parity) from *execution*:
+branches per tile on the format code (reference: tilespmv_cuda.h:394-792),
+one warp per tile row. Array programs compiled by XLA cannot branch per
+tile, so this design separates *storage* (TileMatrix, reference-parity)
+from *execution*:
 
 `build_plan` compiles a TileMatrix into static-shaped, format-segregated,
 padded arrays — one regular "engine" input per format family — so each
 engine is a branch-free vectorized kernel over a rectangular array:
 
-* dense tiles   -> (nt, B, B) batched tile·x-block products (MXU-able)
+* dense tiles   -> (nt, B, B) batched tile·x-block products
 * dense rows    -> (R, B) row dot-products, scatter by global row
 * dense cols    -> (C, B) column AXPYs, scatter by tile-row block
 * ELL tiles     -> width-class sub-buckets (nt, W, B) slot grids; HYB tiles'
@@ -177,7 +177,7 @@ def build_plan(tm: TileMatrix, compute_dtype=jnp.float32,
     """Compile a TileMatrix into a SpMVPlan.
 
     `pad_tiles_to`: engine leading dims are padded up to a multiple of this
-    so XLA/Pallas see friendly shapes (padding tiles point at tile (0, 0)
+    so XLA sees friendly shapes (padding tiles point at tile (0, 0)
     with zero values — harmless scatter of zeros).
     """
     b = tm.config.tile_size

@@ -1,14 +1,16 @@
-"""XLA-level SpMV engines.
+"""SpMV engines, one per plan bucket.
 
 Each engine consumes one plan bucket and produces partial y contributions;
-`spmv_xla` assembles them into y. These are pure jnp implementations — they
-serve as (a) the correctness oracle for the Pallas kernels, (b) the fallback
-backend on CPU and in interpret-free tests, and (c) a strong baseline: XLA
-already fuses the gather/multiply/scatter chains well on TPU.
+`ops/spmv.py::spmv` assembles them into y. They are plain jnp programs that
+XLA compiles for the device: gathers, fused multiplies and scatter-adds.
 
 Replaces the reference's fused per-warp dispatch kernel
 (tilespmv_cuda.h:394-792) with branch-free, format-bucketed array programs
 (see ops/plan.py docstring for the design rationale).
+
+The two contractions (`dense_blocks`, `csr_blocks`) ask for
+`Precision.HIGHEST`: on a GPU, XLA may otherwise run a float32
+`dot_general` in TF32, which keeps about three decimal digits.
 """
 from __future__ import annotations
 
@@ -22,12 +24,12 @@ from .plan import (ColEngine, CsrEngine, DenseEngine, EllEngine,
 def dense_blocks(e: DenseEngine, x2d: jax.Array) -> jax.Array:
     """(nt, B) per-tile y-block: full B x B tile times x-block.
 
-    TPU-native replacement of the unrolled shuffle-broadcast dense device
-    code (reference tilespmv_cuda.h:664-710): a batched matvec the MXU eats
-    directly.
+    Replaces the unrolled shuffle-broadcast dense device code (reference
+    tilespmv_cuda.h:664-710) with one batched matvec.
     """
     xblk = x2d[e.tilecol]  # (nt, B)
     return jnp.einsum("tij,tj->ti", e.val, xblk,
+                      precision=jax.lax.Precision.HIGHEST,
                       preferred_element_type=x2d.dtype)
 
 
@@ -75,6 +77,7 @@ def csr_blocks(e: CsrEngine, x2d: jax.Array) -> jax.Array:
     contrib = e.val * xv  # (nt, W)
     onehot = jax.nn.one_hot(row, b, dtype=contrib.dtype)  # (nt, W, B)
     return jnp.einsum("tw,twb->tb", contrib, onehot,
+                      precision=jax.lax.Precision.HIGHEST,
                       preferred_element_type=contrib.dtype)
 
 

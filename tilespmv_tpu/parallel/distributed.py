@@ -13,9 +13,9 @@ SURVEY.md §2.3). Design:
   shards with a single `P('row')` prefix spec.
 * `shard_map` over the 1-D mesh runs the single-chip engine stack on each
   device's shard. x is either replicated (`x_mode="replicated"`) or sharded
-  and reassembled with `jax.lax.all_gather` over ICI
-  (`x_mode="allgather"`, the default — the all-gather overlaps with the
-  leading engine work under XLA's scheduler).
+  and reassembled with `jax.lax.all_gather` (`x_mode="allgather"`, the
+  default — the all-gather overlaps with the leading engine work under
+  XLA's scheduler).
 * y comes back sharded by rows (`P('row')`) — no reduction needed, since a
   row block is owned by exactly one device.
 
@@ -180,220 +180,6 @@ def _unify_plans(plans: list[SpMVPlan]) -> list[SpMVPlan]:
     return out
 
 
-def _unify_lane_plans(plans: list) -> list:
-    """Give per-shard LanePlans identical treedefs/shapes (SPMD): every
-    shard gets every class, chunk counts padded to the max with inert
-    chunks appended at the last window (cw stays monotone)."""
-    from ..ops.pallas.lane_plan import (BAND_K, META_XLOC, BandChunks,
-                                        DenseChunks, SparseChunks,
-                                        LanePlan, empty_dense_class,
-                                        empty_sparse_class)
-    from ..ops.pallas.stream_plan import (StreamChunks, empty_stream_chunks)
-    n_windows = max(p.n_windows for p in plans)
-    # df64 classes store f32 part-planes, so the VALUE dtype cannot
-    # distinguish precisions — read the static class flags instead
-    df64 = any((p.dense is not None and p.dense.df64)
-               or (p.band is not None and p.band.df64)
-               or (p.stream is not None and p.stream.df64)
-               for p in plans)
-    cdt = jnp.float64 if df64 else None
-    if cdt is None:
-        for p in plans:
-            if p.dense is not None:
-                cdt = p.dense.val.dtype
-            for s in p.sparses:
-                cdt = s.val.dtype
-    cdt = cdt or jnp.float32
-    t_dense = max((p.dense.t_lanes for p in plans if p.dense is not None),
-                  default=128)
-
-    def pad_class(c, target, n_windows, is_dense):
-        # per-step cw/cfirst padding below assumes one chunk per step;
-        # shard plans are built with force_t (which pins c_batch=1)
-        assert c.c_batch == 1, "SPMD unification requires c_batch == 1"
-        nc = c.val.shape[0]
-        if nc == target:
-            return c
-        extra = target - nc
-        t = c.t_lanes
-        meta_pad = np.zeros((extra,) + tuple(c.meta.shape[1:]), np.int32)
-        meta_pad[:, META_XLOC] = -1
-        kw = dict(
-            val=jnp.concatenate(
-                [c.val, jnp.zeros((extra,) + c.val.shape[1:], c.val.dtype)]),
-            meta=jnp.concatenate([c.meta, jnp.asarray(meta_pad)]),
-            pb=jnp.concatenate(
-                [c.pb, jnp.zeros(extra * c.k_panels, jnp.int32)]),
-            cw=jnp.concatenate(
-                [c.cw, jnp.full(extra, n_windows - 1, jnp.int32)]),
-            cfirst=jnp.concatenate([c.cfirst, jnp.zeros(extra, jnp.int32)]),
-        )
-        if is_dense:
-            return DenseChunks(t_lanes=t, k_panels=c.k_panels,
-                               df64=c.df64, route=c.route, **kw)
-        return SparseChunks(width=c.width, t_lanes=t,
-                            k_panels=c.k_panels, route=c.route, **kw)
-
-    route_dense = next((p.dense.route for p in plans
-                        if p.dense is not None), "onehot")
-    denses = []
-    for p in plans:
-        d = p.dense if p.dense is not None else empty_dense_class(
-            n_windows, t_dense, cdt, k_panels=4, route=route_dense)
-        denses.append(d)
-    nd = max(d.val.shape[0] for d in denses)
-    denses = [pad_class(d, nd, n_windows, True) for d in denses]
-
-    # band class: pad C (brick columns) and window count across shards;
-    # shards without one get an all-inert band (initializes its output)
-    has_band = any(p.band is not None for p in plans)
-    bands = [None] * len(plans)
-    if has_band:
-        import numpy as _np
-        cmax = max(p.band.c_cols for p in plans if p.band is not None)
-        vparts = 2 if df64 else 1   # df64 band val rows: (hi, lo) per C
-
-        def pad_band(b):
-            if b is None:
-                return BandChunks(
-                    val=jnp.zeros((n_windows, vparts * cmax, 16, 16, 256),
-                                  jnp.float32 if df64 else cdt),
-                    bloc=jnp.zeros((n_windows, 1, 256), jnp.int32),
-                    pb=jnp.zeros(n_windows * BAND_K, jnp.int32),
-                    cw=jnp.asarray(_np.arange(n_windows,
-                                              dtype=_np.int32)),
-                    cfirst=jnp.ones(n_windows, jnp.int32),
-                    c_cols=cmax, k_panels=BAND_K, df64=df64)
-            val = b.val
-            if b.c_cols < cmax:
-                # extra brick columns are zero: they multiply x at
-                # in-range panel lanes and add nothing (df64: 3 part
-                # rows per brick column)
-                val = jnp.pad(val,
-                              [(0, 0), (0, vparts * (cmax - b.c_cols)),
-                               (0, 0), (0, 0), (0, 0)])
-            nw = b.cw.shape[0]
-            if nw < n_windows:
-                extra = n_windows - nw
-                val = jnp.concatenate(
-                    [val, jnp.zeros((extra,) + tuple(val.shape[1:]),
-                                    val.dtype)])
-                return BandChunks(
-                    val=val,
-                    bloc=jnp.concatenate(
-                        [b.bloc, jnp.zeros((extra, 1, 256), jnp.int32)]),
-                    pb=jnp.concatenate(
-                        [b.pb, jnp.zeros(extra * b.k_panels,
-                                         jnp.int32)]),
-                    cw=jnp.asarray(_np.arange(n_windows,
-                                              dtype=_np.int32)),
-                    cfirst=jnp.ones(n_windows, jnp.int32),
-                    c_cols=cmax, k_panels=b.k_panels, df64=b.df64)
-            return BandChunks(val=val, bloc=b.bloc, pb=b.pb, cw=b.cw,
-                              cfirst=b.cfirst, c_cols=cmax,
-                              k_panels=b.k_panels, df64=b.df64)
-        bands = [pad_band(p.band) for p in plans]
-
-    # sparse classes unify per width: every shard gets every width that
-    # appears anywhere, padded to that width's max chunk count
-    widths = sorted({s.width for p in plans for s in p.sparses})
-    sparses = [[] for _ in plans]
-    for w in widths:
-        route_w = next((s.route for p in plans for s in p.sparses
-                        if s.width == w), "onehot")
-        per = []
-        for p in plans:
-            match = [s for s in p.sparses if s.width == w]
-            per.append(match[0] if match
-                       else empty_sparse_class(n_windows, w, cdt,
-                                               k_panels=4,
-                                               route=route_w))
-        ns = max(s.val.shape[0] for s in per)
-        for i, s in enumerate(per):
-            sparses[i].append(pad_class(s, ns, n_windows, False))
-    sparses = [tuple(s) for s in sparses]
-
-    has_stream = any(p.stream is not None for p in plans)
-    streams = [None] * len(plans)
-    if has_stream:
-        nw2 = max(p.n_stream_windows for p in plans)
-        rounds = max(p.stream.rounds for p in plans
-                     if p.stream is not None)
-        # s_batch is a STATIC pytree field: an empty shard class must
-        # match the real shards' rate or the stacked plans' treedefs
-        # diverge
-        s_b = next(p.stream.s_batch for p in plans
-                   if p.stream is not None)
-        per = [p.stream if p.stream is not None
-               else empty_stream_chunks(nw2, cdt, rounds=rounds,
-                                        s_batch=s_b)
-               for p in plans]
-        ns = max(s.nslabs for s in per)
-        # df64 segmented scan: segmask presence and scan depth are
-        # static pytree data — unify to the max depth, giving empty
-        # shards all-zero masks (zero mask = no in-run neighbors, the
-        # scan is a no-op on their zero contributions)
-        seg_lv = max((s.scan_levels for s in per
-                      if s.segmask is not None), default=-1)
-
-        def pad_stream(s):
-            planes = s.planes  # per-STEP stacked: (nsteps, R*3*8*S, 128)
-            if s.rounds < rounds:
-                # extra rounds are all-zero: rend == rstart -> zero diff
-                planes = jnp.pad(
-                    planes,
-                    [(0, 0),
-                     (0, (rounds - s.rounds) * 3 * 8 * s.s_batch),
-                     (0, 0)])
-            segmask = s.segmask
-            if seg_lv >= 0 and segmask is None:
-                segmask = jnp.zeros_like(s.vidx, dtype=jnp.int8)
-            extra = ns - s.nslabs
-            if not extra and s.rounds == rounds \
-                    and s.scan_levels == seg_lv and (
-                        (segmask is None) == (s.segmask is None)):
-                return s
-
-            def padn(a):
-                return jnp.concatenate(
-                    [a, jnp.zeros((extra,) + a.shape[1:], a.dtype)])
-            xsteps = extra // s.s_batch
-            return StreamChunks(
-                val=padn(s.val), vidx=padn(s.vidx),
-                planes=jnp.concatenate(
-                    [planes, jnp.zeros((xsteps,) + planes.shape[1:],
-                                       planes.dtype)]),
-                sbase=jnp.concatenate(
-                    [s.sbase, jnp.zeros(extra, jnp.int32)]),
-                cw=jnp.concatenate(
-                    [s.cw, jnp.full(xsteps, nw2 - 1, jnp.int32)]),
-                cfirst=jnp.concatenate(
-                    [s.cfirst, jnp.zeros(xsteps, jnp.int32)]),
-                sactive=jnp.concatenate(
-                    [s.sactive, jnp.zeros(xsteps, jnp.int32)]),
-                val_lo=padn(s.val_lo) if s.df64 else None,
-                sbase2=(jnp.concatenate(
-                    [s.sbase2, jnp.zeros(extra, jnp.int32)])
-                    if s.sbase2 is not None else None),
-                segmask=padn(segmask) if segmask is not None else None,
-                s_batch=s.s_batch, rounds_=rounds, df64=s.df64,
-                span_rows=s.span_rows, dual=s.dual,
-                scan_levels=seg_lv)
-        streams = [pad_stream(s) for s in per]
-
-    res_n = max(max(p.residual.val.shape[0] for p in plans), 8)
-    total_nnz = sum(p.nnz for p in plans)
-    out = []
-    for i, p in enumerate(plans):
-        e = _pad_residual(p.residual, res_n)
-        out.append(LanePlan(
-            dense=denses[i], band=bands[i], sparses=sparses[i], residual=e,
-            stream=streams[i],
-            m=p.m, n=p.n, tilem=p.tilem, tilen=p.tilen,
-            tile_size=p.tile_size, nnz=total_nnz, n_windows=n_windows))
-    return out
-
-
 @dataclasses.dataclass(frozen=True)
 class HaloPlan:
     """Selective x-exchange plan (SURVEY.md §2.3): which 128-value x
@@ -476,27 +262,11 @@ def _plan_halo(blocks: list, n: int, ndev: int) -> HaloPlan:
                     foreign_blocks=foreign_blocks)
 
 
-def _plan_blocks(tile_matrices, backend, compute_dtype):
-    """Per-shard plans with shard-uniform knobs (shared by the 1-D and
-    2-D partitions): force_t pins chunk shapes, the stream decision is
-    global so every shard compiles the same program."""
-    if backend == "pallas":
-        from ..ops.pallas.lane_plan import (STREAM_MIN_ENTRIES,
-                                            build_lane_plan)
-        coo_total = sum(int(tm.coo.val.shape[0]) if tm.coo.num_tiles else 0
-                        for tm in tile_matrices)
-        use_stream = coo_total >= STREAM_MIN_ENTRIES
-        # shard-uniform stream knobs: s_batch=8 (on-chip singles measure
-        # 118.9 ns/slab at 8 vs 153.6 at 4 — calibrate_slab_ns round 3)
-        # and the default span width
-        plans = [build_lane_plan(tm, compute_dtype=compute_dtype,
-                                 force_t=128, use_stream=use_stream,
-                                 stream_s_batch=8, stream_span_rows=64)
-                 for tm in tile_matrices]
-        return _unify_lane_plans(plans)
-    plans = [build_plan(tm, compute_dtype=compute_dtype)
-             for tm in tile_matrices]
-    return _unify_plans(plans)
+def _plan_blocks(tile_matrices, compute_dtype):
+    """Per-shard plans unified to one SPMD program (shared by the 1-D and
+    2-D partitions)."""
+    return _unify_plans([build_plan(tm, compute_dtype=compute_dtype)
+                         for tm in tile_matrices])
 
 
 class DistributedSpMV:
@@ -504,21 +274,15 @@ class DistributedSpMV:
 
     >>> op = DistributedSpMV(csr, mesh=make_mesh())
     >>> y = op(x)          # y sharded P('row') over the mesh
-
-    backend "pallas" runs the lane-major Pallas engines per shard;
-    "xla" the jnp engines; "auto" picks pallas for 16-sized tiles.
     """
 
     def __init__(self, csr: CSRMatrix,
                  mesh: Optional[Mesh] = None,
                  config: TileConfig = DEFAULT_CONFIG,
                  compute_dtype=jnp.float32,
-                 backend: str = "auto",
                  x_mode: str = "allgather"):
         if x_mode not in ("allgather", "replicated", "halo", "auto"):
             raise ValueError(f"unknown x_mode {x_mode!r}")
-        if backend == "auto":
-            backend = "pallas" if config.tile_size == 16 else "xla"
         self.mesh = mesh if mesh is not None else make_mesh()
         ndev = self.mesh.devices.size
         b = config.tile_size
@@ -529,7 +293,6 @@ class DistributedSpMV:
         self.m, self.n = m, n
         self.rows_per_device = rows_per
         self.compute_dtype = jnp.dtype(compute_dtype)
-        self.backend = backend
         # x padded to a multiple of ndev for even sharding
         self.n_pad = -(-n // ndev) * ndev
 
@@ -562,9 +325,8 @@ class DistributedSpMV:
             self.tile_matrices = [tile_create(b, config)
                                   for b in halo.local_blocks]
             tms_f = [tile_create(b, config) for b in halo.foreign_blocks]
-            plans_l = _plan_blocks(self.tile_matrices, backend,
-                                   compute_dtype)
-            plans_f = _plan_blocks(tms_f, backend, compute_dtype)
+            plans_l = _plan_blocks(self.tile_matrices, compute_dtype)
+            plans_f = _plan_blocks(tms_f, compute_dtype)
             self.local_plan_struct = plans_l[0]
             sharding = NamedSharding(self.mesh, P(ROW_AXIS))
             self.plan_sharded = (
@@ -575,15 +337,13 @@ class DistributedSpMV:
         else:
             self.tile_matrices = [tile_create(block, config)
                                   for block in blocks]
-            plans = _plan_blocks(self.tile_matrices, backend,
-                                 compute_dtype)
+            plans = _plan_blocks(self.tile_matrices, compute_dtype)
             self.local_plan_struct = plans[0]
             stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *plans)
             # place the stacked plan sharded over the mesh
             self.plan_sharded = jax.device_put(
                 stacked, NamedSharding(self.mesh, P(ROW_AXIS)))
 
-        backend_ = backend
         x_mode_ = x_mode
         n_ = n
         halo_ = self.halo
@@ -602,18 +362,16 @@ class DistributedSpMV:
                 recv = jax.lax.all_to_all(send, ROW_AXIS,
                                           split_axis=0, concat_axis=0,
                                           tiled=True)
-                y_local = spmv(local_l, x_in[: local_l.n],
-                               backend=backend_)
+                y_local = spmv(local_l, x_in[: local_l.n])
                 x_c = jnp.concatenate([x2, recv], axis=0).reshape(-1)
-                y_foreign = spmv(local_f, x_c[: local_f.n],
-                                 backend=backend_)
+                y_foreign = spmv(local_f, x_c[: local_f.n])
                 return y_local + y_foreign
 
             self._step = jax.jit(jax.shard_map(
                 local_step, mesh=self.mesh,
                 in_specs=((P(ROW_AXIS), P(ROW_AXIS)), P(ROW_AXIS),
                           P(ROW_AXIS)),
-                out_specs=P(ROW_AXIS), check_vma=False))
+                out_specs=P(ROW_AXIS)))
         else:
             def local_step(plan_stack: SpMVPlan,
                            x_in: jax.Array) -> jax.Array:
@@ -622,15 +380,13 @@ class DistributedSpMV:
                     x_full = jax.lax.all_gather(x_in, ROW_AXIS, tiled=True)
                 else:
                     x_full = x_in
-                return spmv(local, x_full[:n_], backend=backend_)
+                return spmv(local, x_full[:n_])
 
             in_x_spec = P(ROW_AXIS) if x_mode == "allgather" else P()
-            # check_vma=False: pallas_call outputs carry no
-            # varying-mesh-axis annotation yet
             self._step = jax.jit(jax.shard_map(
                 local_step, mesh=self.mesh,
                 in_specs=(P(ROW_AXIS), in_x_spec),
-                out_specs=P(ROW_AXIS), check_vma=False))
+                out_specs=P(ROW_AXIS)))
 
     @property
     def shape(self) -> tuple[int, int]:

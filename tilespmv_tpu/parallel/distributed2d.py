@@ -15,7 +15,7 @@ reach), the tile grid is block-partitioned instead (SURVEY.md §5's
 * each device computes the partial y_ij = A_ij @ x_j and the row stripe
   is reduced with one `psum` over the column axis — the functional
   equivalent of the reference's split-chunk atomicAdd
-  (tilespmv_cuda.h:384-390) at pod scale;
+  (tilespmv_cuda.h:384-390) across devices;
 * y returns sharded `P('row')` (replicated over columns).
 
 Communication totals per device: zero on x, |y_i| on the reduce —
@@ -60,10 +60,7 @@ class DistributedSpMV2D:
     def __init__(self, csr: CSRMatrix,
                  mesh: Optional[Mesh] = None,
                  config: TileConfig = DEFAULT_CONFIG,
-                 compute_dtype=jnp.float32,
-                 backend: str = "auto"):
-        if backend == "auto":
-            backend = "pallas" if config.tile_size == 16 else "xla"
+                 compute_dtype=jnp.float32):
         self.mesh = mesh if mesh is not None else make_mesh2d(1, 1)
         nrow, ncol = self.mesh.devices.shape
         b = config.tile_size
@@ -73,7 +70,6 @@ class DistributedSpMV2D:
         self.m, self.n = m, n
         self.rows_per, self.cols_per = rows_per, cols_per
         self.compute_dtype = jnp.dtype(compute_dtype)
-        self.backend = backend
 
         self.tile_matrices = []
         blocks = []
@@ -85,7 +81,7 @@ class DistributedSpMV2D:
                                          min((j + 1) * cols_per, n),
                                          cols_per))
         self.tile_matrices = [tile_create(blk, config) for blk in blocks]
-        plans = _plan_blocks(self.tile_matrices, backend, compute_dtype)
+        plans = _plan_blocks(self.tile_matrices, compute_dtype)
         self.local_plan_struct = plans[0]
         stacked = jax.tree.map(
             lambda *xs: jnp.stack(xs).reshape(
@@ -93,17 +89,16 @@ class DistributedSpMV2D:
         self.plan_sharded = jax.device_put(
             stacked, NamedSharding(self.mesh, P(ROW_AXIS, COL_AXIS)))
         self.n_x_pad = ncol * cols_per
-        backend_ = backend
 
         def local_step(plan_stack, x_j):
             local = jax.tree.map(lambda a: a[0, 0], plan_stack)
-            y_part = spmv(local, x_j, backend=backend_)
+            y_part = spmv(local, x_j)
             return jax.lax.psum(y_part, COL_AXIS)
 
         self._step = jax.jit(jax.shard_map(
             local_step, mesh=self.mesh,
             in_specs=(P(ROW_AXIS, COL_AXIS), P(COL_AXIS)),
-            out_specs=P(ROW_AXIS), check_vma=False))
+            out_specs=P(ROW_AXIS)))
 
     @property
     def shape(self) -> tuple[int, int]:

@@ -1,9 +1,10 @@
 """Device mesh helpers.
 
-The reference is single-GPU (SURVEY.md §2.3); distribution is a new,
-TPU-native subsystem: a 1-D (or 2-D) logical mesh over the pod slice, with
+The reference is single-GPU (SURVEY.md §2.3); distribution is a new
+subsystem: a 1-D (or 2-D) logical mesh over a plain list of devices, with
 the tile grid row-partitioned along the "row" axis and x exchanged via
-collectives (BASELINE.md configs 4-5).
+collectives. The mesh follows the algorithm, not the wiring: on cards
+joined all to all (NVLink) every pair is equidistant.
 """
 from __future__ import annotations
 
@@ -44,13 +45,14 @@ def make_mesh2d(rows: int, cols: int,
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Bring up the multi-host JAX runtime (DCN) before building meshes.
+    """Bring up the multi-process JAX runtime before building meshes.
 
-    Thin wrapper over `jax.distributed.initialize` (args default to the
-    TPU pod metadata on Cloud TPU). After this, `jax.devices()` spans the
-    pod slice and `make_mesh`/`make_mesh2d` lay blocks across hosts; the
-    same SPMD programs run unchanged — collectives ride ICI within a host
-    and DCN across hosts (BASELINE.md config 5).
+    Thin wrapper over `jax.distributed.initialize`. Where no cluster
+    manager describes the job, pass all three arguments
+    (`coordinator_address="localhost:<port>"` for processes on one host).
+    After this, `jax.devices()` spans every process and
+    `make_mesh`/`make_mesh2d` lay blocks across them; the same SPMD
+    programs run unchanged.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,6 +1,4 @@
 from .host import csr_transpose, exclusive_scan, binary_search_right_boundary
-from .profiling import profile_engines, trace_context
 
 __all__ = ["exclusive_scan", "csr_transpose",
-           "binary_search_right_boundary", "profile_engines",
-           "trace_context"]
+           "binary_search_right_boundary"]
